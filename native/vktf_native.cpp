@@ -1,14 +1,14 @@
-// vktf_tpu native runtime: the host-side hot loops of the asset pipeline.
+// vktf native runtime: the host-side hot loops of the asset pipeline.
 //
 // The reference engine runs its CPU-bound asset work in native code (cgltf
 // attribute unpack gltf_asset.cppm:664-769; libktx decode/transcode
 // ktx_texture.cppm:34-45; driver-side mip handling image.cppm:190-212). This
-// module is the TPU build's native equivalent for everything that stays on
+// module is this build's native equivalent for everything that stays on
 // the host: sRGB-correct mip-chain generation, quad-pool texel packing
 // (ops/texture_pack.py layout), glTF accessor unpacking (strided +
 // normalized), and KTX2 supercompression inflate (zlib/zstd).
 //
-// Exposed as a plain C ABI consumed through ctypes (vktf_tpu/native.py),
+// Exposed as a plain C ABI consumed through ctypes (vktf/native.py),
 // with pure-numpy fallbacks when the shared library is unavailable.
 
 #include <algorithm>
@@ -237,8 +237,8 @@ int64_t vktf_decompress_zstd(const uint8_t* src, int64_t src_len, uint8_t* dst,
 //
 // ETC1S is the simplified ETC1 subset Basis uses: one 5:5:5 base color and
 // one intensity table per 4x4 block, 2-bit selectors per texel (see
-// vktf_tpu/loaders/basis.py for the container/VLC layer). The reference
-// transcodes through libktx (ktx_texture.cppm:62-94); the TPU target is
+// vktf/loaders/basis.py for the container/VLC layer). The reference
+// transcodes through libktx (ktx_texture.cppm:62-94); the target here is
 // plain RGBA8.
 // ---------------------------------------------------------------------------
 

@@ -2,13 +2,13 @@
 
 import numpy as np
 
-from vktf_tpu.config import RenderConfig
-from vktf_tpu.loaders.gltf import load_gltf
-from vktf_tpu.mathx import Camera, ViewFrustumParams
-from vktf_tpu.ops.pipeline import make_frame_fn
-from vktf_tpu.ops.raster_xla import SAMPLE_OFFSETS
-from vktf_tpu.ops.reference import ReferenceScene, render_reference
-from vktf_tpu.scene.flatten import flatten_assets
+from vktf.config import RenderConfig
+from vktf.loaders.gltf import load_gltf
+from vktf.mathx import Camera, ViewFrustumParams
+from vktf.ops.pipeline import make_frame_fn
+from vktf.ops.raster_xla import SAMPLE_OFFSETS
+from vktf.ops.reference import ReferenceScene, render_reference
+from vktf.scene.flatten import flatten_assets
 
 
 def checker_png_bytes(size=16, a=(220, 40, 40, 255), b=(40, 40, 220, 255), cell=4):

@@ -13,8 +13,8 @@ import io
 import numpy as np
 import pytest
 
-from vktf_tpu.models.gltf_writer import GltfWriter
-from vktf_tpu.models.primitives import box_mesh, plane_mesh
+from vktf.models.gltf_writer import GltfWriter
+from vktf.models.primitives import box_mesh, plane_mesh
 
 from helpers import assert_images_close, render_both
 
@@ -156,11 +156,11 @@ def _render_stack(path, *, peel_override=None, oracle_k=None,
     """Render a stacked-blend scene with the pallas pipeline and the K-layer
     oracle; returns (produced, oracle(k), meta)."""
     from helpers import SAMPLE_OFFSETS, default_camera, make_reference
-    from vktf_tpu.config import RenderConfig
-    from vktf_tpu.loaders.gltf import load_gltf
-    from vktf_tpu.ops.pipeline import make_frame_fn
-    from vktf_tpu.ops.reference import render_reference
-    from vktf_tpu.scene.flatten import flatten_assets
+    from vktf.config import RenderConfig
+    from vktf.loaders.gltf import load_gltf
+    from vktf.ops.pipeline import make_frame_fn
+    from vktf.ops.reference import render_reference
+    from vktf.scene.flatten import flatten_assets
 
     scene, meta, aux = flatten_assets([load_gltf(path)], log)
     if n_expected_layers is not None:
@@ -202,7 +202,7 @@ def test_nine_deep_blend_clamp_warns_and_bounds_error(tmp_path):
     by the transmittance product of the 8 nearest layers (alphas
     .45/.5/.4/.5/.45/.5/.4/.5 -> <= 0.55*0.5*0.6*0.5^2*0.55*0.6*0.5
     ~ 0.68% of full scale per channel)."""
-    from vktf_tpu.log import Log
+    from vktf.log import Log
 
     # dz keeps all 9 quads in FRONT of the opaque box's front face (z=0):
     # 0.45 - 8*0.05 = 0.05 > 0, so central rays really carry 10 fragments

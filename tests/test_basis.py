@@ -10,9 +10,9 @@ compare against the ETC1S quantization applied directly.
 import numpy as np
 import pytest
 
-from vktf_tpu.loaders import basis
-from vktf_tpu.loaders.images import generate_mips
-from vktf_tpu.loaders.ktx import encode_ktx2_basis, parse_ktx2
+from vktf.loaders import basis
+from vktf.loaders.images import generate_mips
+from vktf.loaders.ktx import encode_ktx2_basis, parse_ktx2
 
 
 def _test_image(size=32, seed=0):
@@ -119,12 +119,12 @@ def test_etc1s_renders_through_material_pipeline(tmp_path):
     """A BasisLZ .ktx2 feeds the real glTF->flatten->render path."""
     import jax
 
-    from vktf_tpu.loaders.ktx import write_ktx2_basis
-    from vktf_tpu.models.gltf_writer import GltfWriter
-    from vktf_tpu.models.primitives import plane_mesh
+    from vktf.loaders.ktx import write_ktx2_basis
+    from vktf.models.gltf_writer import GltfWriter
+    from vktf.models.primitives import plane_mesh
     from helpers import build_scene, default_camera
-    from vktf_tpu.config import RenderConfig
-    from vktf_tpu.ops.pipeline import make_frame_fn
+    from vktf.config import RenderConfig
+    from vktf.ops.pipeline import make_frame_fn
 
     levels = generate_mips(_test_image(32), srgb=True)
     ktx_path = write_ktx2_basis(tmp_path / "base.ktx2", levels, srgb=True)
@@ -165,7 +165,7 @@ def test_huffman_spec_fixture_hand_constructed():
     codes 00,01,100,101,110,111 (canonical shorter-first, then symbol
     order).
     """
-    from vktf_tpu.loaders.basis import (
+    from vktf.loaders.basis import (
         BitReader, BitWriter, HuffmanDecoder, read_huffman_table, _CLC_ORDER,
     )
 
@@ -209,7 +209,7 @@ def test_huffman_spec_fixture_hand_constructed():
 def test_huffman_spec_fixture_zero_runs():
     """Zero-run codes 17 (3-10 zeros, 3 extra bits) and 18 (11-138 zeros,
     7 extra bits) decode per the basisu rules, from a hand-built stream."""
-    from vktf_tpu.loaders.basis import (
+    from vktf.loaders.basis import (
         BitReader, BitWriter, read_huffman_table, _CLC_ORDER,
     )
 
@@ -257,7 +257,7 @@ def test_etc1s_block_math_spec_fixture():
     rules, so a systematically-wrong table or expansion fails here even
     though the module's encoder/decoder round-trip would still agree.
     """
-    from vktf_tpu.loaders.basis import decode_etc1s_blocks
+    from vktf.loaders.basis import decode_etc1s_blocks
 
     endpoints = np.asarray(
         [

@@ -1,7 +1,7 @@
-"""The bench's un-killable property, pinned in CI (VERDICT r2 #1).
+"""The bench's un-killable property, pinned in CI.
 
-BENCH_r02.json was empty because the driver's run died before printing
-anything. These tests run bench.py as a subprocess (CPU-forced, tiny
+A killed or stalled bench must still print its result. These tests run
+bench.py as a subprocess (an explicit CPU rehearsal, VKTF_FORCE_CPU=1, tiny
 config) and assert a parseable JSON line lands on stdout in every exit
 mode: normal completion, watchdog budget expiry, and SIGTERM.
 """

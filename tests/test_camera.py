@@ -9,8 +9,8 @@ eps = 1e-6-ish tolerances, plus the zero-direction error case.
 import numpy as np
 import pytest
 
-from vktf_tpu.mathx import Camera, ViewFrustumParams, perspective
-from vktf_tpu.mathx.quaternion import (
+from vktf.mathx import Camera, ViewFrustumParams, perspective
+from vktf.mathx.quaternion import (
     quat_angle_axis,
     quat_multiply,
     quat_normalize,

@@ -6,9 +6,9 @@ import io
 import numpy as np
 import pytest
 
-from vktf_tpu.config import RenderConfig
-from vktf_tpu.engine import Engine
-from vktf_tpu.game import (
+from vktf.config import RenderConfig
+from vktf.engine import Engine
+from vktf.game import (
     DRAG_SPEED,
     MouseLook,
     create_window,
@@ -16,10 +16,10 @@ from vktf_tpu.game import (
     handle_key_events,
     start,
 )
-from vktf_tpu.log import Log
-from vktf_tpu.models.gltf_writer import GltfWriter
-from vktf_tpu.models.primitives import box_mesh
-from vktf_tpu.window import (
+from vktf.log import Log
+from vktf.models.gltf_writer import GltfWriter
+from vktf.models.primitives import box_mesh
+from vktf.window import (
     KEY_ESCAPE,
     KEY_W,
     MOUSE_BUTTON_LEFT,
@@ -115,7 +115,7 @@ class TestRenderLoop:
         engine bit-for-bit on the virtual device mesh."""
         import jax
 
-        from vktf_tpu.parallel import make_render_mesh
+        from vktf.parallel import make_render_mesh
 
         config = RenderConfig(width=128, height=64, msaa_samples=1,
                               tile_shape=(32, 64), backend="pallas")
@@ -179,7 +179,7 @@ class TestControls:
         look.handle(window, cam)
         assert not np.allclose(cam.orientation, q0)
         # yaw by -100*k: forward direction rotates about +y
-        from vktf_tpu.mathx.quaternion import quat_rotate
+        from vktf.mathx.quaternion import quat_rotate
 
         fwd = np.asarray(quat_rotate(cam.orientation, np.asarray([0.0, 0.0, -1.0])))
         expected_yaw = -100 * DRAG_SPEED
@@ -204,7 +204,7 @@ class TestControls:
 
 
 def _camera():
-    from vktf_tpu.mathx import Camera, ViewFrustumParams
+    from vktf.mathx import Camera, ViewFrustumParams
 
     return Camera((0.0, 1.0, 0.0), (1.0, 0.0, 0.0), ViewFrustumParams(np.radians(45), 4 / 3, 0.1, 1e6))
 

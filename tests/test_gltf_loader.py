@@ -7,10 +7,10 @@ import json
 import numpy as np
 import pytest
 
-from vktf_tpu.log import Log
-from vktf_tpu.loaders.gltf import GltfError, load_gltf
-from vktf_tpu.models.gltf_writer import GltfWriter
-from vktf_tpu.models.primitives import box_mesh, plane_mesh, uv_sphere_mesh
+from vktf.log import Log
+from vktf.loaders.gltf import GltfError, load_gltf
+from vktf.models.gltf_writer import GltfWriter
+from vktf.models.primitives import box_mesh, plane_mesh, uv_sphere_mesh
 
 
 def make_log():
@@ -360,7 +360,7 @@ def test_index_oob_skips_primitive(tmp_path):
 def test_flatten_guards_hostile_indices(tmp_path):
     """No loader escape may surface as a raw IndexError in flatten's
     tri_corner gather: the flatten-level guard raises the fatal tier."""
-    from vktf_tpu.scene.flatten import flatten_assets
+    from vktf.scene.flatten import flatten_assets
 
     asset = load_gltf(write_box_asset(tmp_path / "box.gltf"))
     asset.meshes[0].primitives[0].indices[0, 0] = 99999

@@ -1,12 +1,12 @@
-"""Golden-image tests: the jitted TPU pipeline vs the independent numpy
+"""Golden-image tests: the jitted JAX pipeline vs the independent numpy
 reference renderer, over the BASELINE.json config ladder (Box → textured →
 full PBR → hierarchy/MSAA) at small resolutions."""
 
 import numpy as np
 import pytest
 
-from vktf_tpu.models.gltf_writer import GltfWriter
-from vktf_tpu.models.primitives import box_mesh, plane_mesh, uv_sphere_mesh
+from vktf.models.gltf_writer import GltfWriter
+from vktf.models.primitives import box_mesh, plane_mesh, uv_sphere_mesh
 
 from helpers import (
     assert_images_close,

@@ -6,9 +6,8 @@ pixel-rate 4x MSAA resolve + K-layer peel + textures + per-slot samplers)
 bit-exactly against a checked-in frame, so a regression in any production
 stage fails a test instead of needing visual inspection (VERDICT r1 #7).
 
-Interpret-mode Pallas on CPU; the raster kernel is bit-identical between
-interpret mode and hardware for the shipped window configuration (verified
-on-chip, commit 91e667c / README "Hardware A/B").
+Interpret-mode Pallas on CPU. On the GPU, chip_smoke.py compares the same
+scene with the numpy oracle at the golden tolerance.
 
 Regenerate after an INTENDED rendering change:
     UPDATE_GOLDEN=1 python -m pytest tests/test_golden_production.py
@@ -20,10 +19,10 @@ import pathlib
 
 import numpy as np
 
-from vktf_tpu.config import RenderConfig
-from vktf_tpu.models.gltf_writer import GltfWriter
-from vktf_tpu.models.primitives import box_mesh, plane_mesh, uv_sphere_mesh
-from vktf_tpu.ops.pipeline import make_frame_fn
+from vktf.config import RenderConfig
+from vktf.models.gltf_writer import GltfWriter
+from vktf.models.primitives import box_mesh, plane_mesh, uv_sphere_mesh
+from vktf.ops.pipeline import make_frame_fn
 
 from helpers import build_scene, checker_png_bytes, default_camera
 

@@ -7,7 +7,7 @@ keyValueData, DFD variants, hostile index offsets) AND the BITSTREAM layer
 parse lands in the two-tier policy: skip+log, never a crash).
 
 All fixtures here are HAND-CONSTRUCTED with struct.pack + a local bit
-packer — independent of vktf_tpu.loaders.ktx's own encoder — so they pin
+packer — independent of vktf.loaders.ktx's own encoder — so they pin
 the reader against the KTX2 spec layout, not against our writer.
 Container layout per the Khronos KTX File Format Specification 2.0:
 identifier(12) + header(9 u32) + index(dfd 2xu32, kvd 2xu32, sgd 2xu64) +
@@ -19,8 +19,8 @@ import io
 import numpy as np
 import pytest
 
-from vktf_tpu.log import Log
-from vktf_tpu.loaders.ktx import KtxError, parse_ktx2
+from vktf.log import Log
+from vktf.loaders.ktx import KtxError, parse_ktx2
 
 import struct
 
@@ -370,7 +370,7 @@ def test_uastc_registered_transcoder_closes_gap():
     """Installing a full transcoder via the seam makes the SAME
     foreign-mode container decode through the unchanged loader stack; the
     seam restores cleanly."""
-    from vktf_tpu.loaders import basis
+    from vktf.loaders import basis
 
     def fake_full_transcoder(data, width, height):
         bw, bh = (width + 3) // 4, (height + 3) // 4
@@ -397,7 +397,7 @@ def test_uastc_registered_transcoder_closes_gap():
 def test_uastc_registered_transcoder_failure_is_clean_skip():
     """A transcoder that blows up on hostile bytes stays inside the
     two-tier policy: skip + logged error, never an uncaught exception."""
-    from vktf_tpu.loaders import basis
+    from vktf.loaders import basis
 
     def broken(data, width, height):
         raise ValueError("internal transcoder bug")
@@ -416,9 +416,9 @@ def test_uastc_foreign_mode_through_gltf_scene_stack(tmp_path):
     .ktx2 builds a working scene on the default texture, increments
     textures.decode_failed, and logs — the reference's reject-material
     ethos (model.cppm:391-409) at the highest level."""
-    from vktf_tpu.models.gltf_writer import GltfWriter
-    from vktf_tpu.models.primitives import plane_mesh
-    from vktf_tpu.utils.profiling import counters
+    from vktf.models.gltf_writer import GltfWriter
+    from vktf.models.primitives import plane_mesh
+    from vktf.utils.profiling import counters
 
     import sys
     from pathlib import Path

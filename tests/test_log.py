@@ -5,7 +5,7 @@ import io
 import re
 import threading
 
-from vktf_tpu.log import Log, Severity, default_log
+from vktf.log import Log, Severity, default_log
 
 
 def make_log():

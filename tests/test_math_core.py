@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from vktf_tpu.utils import as_view, size_bytes
-from vktf_tpu.mathx import (
+from vktf.utils import as_view, size_bytes
+from vktf.mathx import (
     BoundingBox,
     aabbs_intersect_frustum,
     frustum_planes,
@@ -13,7 +13,7 @@ from vktf_tpu.mathx import (
     transform_aabbs,
     view_matrix,
 )
-from vktf_tpu.mathx.quaternion import quat_look_at
+from vktf.mathx.quaternion import quat_look_at
 
 
 class TestDataView:

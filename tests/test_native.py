@@ -4,7 +4,7 @@ import numpy as np
 import pytest
 import zlib
 
-from vktf_tpu import native
+from vktf import native
 
 pytestmark = pytest.mark.skipif(
     not native.available(), reason="native library not built"
@@ -12,7 +12,7 @@ pytestmark = pytest.mark.skipif(
 
 
 def test_mips_match_numpy_fallback(monkeypatch):
-    from vktf_tpu.loaders import images
+    from vktf.loaders import images
 
     rng = np.random.default_rng(3)
     base = rng.integers(0, 256, (64, 48, 4), np.uint8)
@@ -34,7 +34,7 @@ def test_mip_sizes_follow_floor_rule():
 
 
 def test_block_pack_matches_numpy():
-    from vktf_tpu.ops import texture_pack as tp
+    from vktf.ops import texture_pack as tp
 
     rng = np.random.default_rng(5)
     for w in (16, 2, 1):

@@ -12,11 +12,11 @@ import numpy as np
 import jax
 import pytest
 
-from vktf_tpu.config import RenderConfig
-from vktf_tpu.models.gltf_writer import GltfWriter
-from vktf_tpu.models.primitives import box_mesh, uv_sphere_mesh
-from vktf_tpu.ops.pipeline import make_frame_fn
-from vktf_tpu.parallel import make_render_mesh, make_sharded_frame_fn
+from vktf.config import RenderConfig
+from vktf.models.gltf_writer import GltfWriter
+from vktf.models.primitives import box_mesh, uv_sphere_mesh
+from vktf.ops.pipeline import make_frame_fn
+from vktf.parallel import make_render_mesh, make_sharded_frame_fn
 
 from helpers import build_scene, default_camera
 
@@ -71,7 +71,7 @@ def blend_scene(tmp_path_factory):
     exercising the sharded K-round head merge in render_frame_sharded."""
     tmp_path = tmp_path_factory.mktemp("parallel_blend")
     w = GltfWriter()
-    from vktf_tpu.models.primitives import plane_mesh
+    from vktf.models.primitives import plane_mesh
 
     opaque = w.add_material(base_color_factor=(0.7, 0.7, 0.2, 1.0),
                             roughness_factor=0.8)
@@ -119,7 +119,7 @@ def mixed_sampler_scene(tmp_path_factory):
     branch in render_frame_sharded (parallel/tiles.py) instead of the
     unified slice shade (reference binds an independent sampler per
     combined image-sampler, material.cppm:138-171)."""
-    from vktf_tpu.models.primitives import plane_mesh
+    from vktf.models.primitives import plane_mesh
 
     from helpers import checker_png_bytes
 
@@ -154,9 +154,8 @@ def mixed_sampler_scene(tmp_path_factory):
 
 @pytest.mark.parametrize("gp", [2, 4])
 def test_sharded_mixed_samplers_match_single_chip(mixed_sampler_scene, gp):
-    """Bit-equality of the sharded ASSEMBLED per-slot fallback (the branch
-    mixed-sampler scenes route through) vs the single-chip pipeline — the
-    previously untested mesh branch (VERDICT r3 weak #4)."""
+    """Bit-equality of the sharded frame vs the single-device pipeline for
+    a mixed-sampler scene (per-slot pool gathers in the shade)."""
     scene, meta, aux = mixed_sampler_scene
     assert meta.mixed_samplers, "fixture must set the static flag"
     config = RenderConfig(width=96, height=64, msaa_samples=2,
@@ -193,25 +192,25 @@ def test_sharded_preview_encode_matches_single_chip(small_scene):
     camera = default_camera(aspect=96 / 64)
     single = _render_single(scene, meta, config, camera)
     sharded = _render_sharded(scene, meta, config, camera, gp=2)
-    from vktf_tpu.ops.present import encoded_size
+    from vktf.ops.present import encoded_size
 
     assert single.shape == sharded.shape == (encoded_size(32, 48),)
     np.testing.assert_array_equal(single, sharded)
 
 
 @pytest.mark.parametrize("gp", [2, 4])
-def test_sharded_prepare_kernel_matches_single_chip(blend_scene, gp):
-    """prepare_impl='kernel' (the one-pass Mosaic setup) on BOTH sides:
-    the sharded frame must stay bit-equal to the single chip — per-lane
-    setup math is position-independent, so micro-shard blocks produce the
-    same constants as the single-chip blocks (ops/setup_kernel.py)."""
+def test_sharded_sample_rate_matches_single_chip(blend_scene, gp):
+    """Sample-rate shading takes the sharded row-slice branch
+    (pallas_shade_resolve per gp rank) and stays bit-equal to the single
+    device, peel layers included."""
     scene, meta, aux = blend_scene
     config = RenderConfig(width=96, height=64, msaa_samples=2,
                           tile_shape=(32, 64), backend="pallas",
-                          prepare_impl="kernel")
+                          shading_rate="sample")
     from helpers import default_camera as _cam
 
     camera = _cam(aspect=96 / 64)
     single = _render_single(scene, meta, config, camera)
     sharded = _render_sharded(scene, meta, config, camera, gp)
+    assert (single.sum(axis=0) > 0).any()
     np.testing.assert_array_equal(single, sharded)

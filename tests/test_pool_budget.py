@@ -1,8 +1,8 @@
 """Material-pool HBM budget clamp (graceful degradation, not failure).
 
 The packed pool inflates raw RGBA ~5.3x; a real Sponza-scale texture set
-(dozens of 1-2K chains) could exceed HBM or the 2^24 f32-exact row
-ceiling. build_material_pool must then DOWNSAMPLE the largest chains with
+(dozens of 1-2K chains) could exceed device memory or the 2^24 f32-exact
+row ceiling. build_material_pool must then DOWNSAMPLE the largest chains with
 a logged error — the reference's device-limit-clamp ethos
 (engine.cppm:157-199) — instead of raising.
 """
@@ -11,9 +11,9 @@ import io
 
 import numpy as np
 
-from vktf_tpu.loaders.images import TextureData, generate_mips
-from vktf_tpu.log import Log
-from vktf_tpu.ops.texture_pack import ROW_U32, build_material_pool
+from vktf.loaders.images import TextureData, generate_mips
+from vktf.log import Log
+from vktf.ops.texture_pack import ROW_U32, build_material_pool
 
 
 def _tex(size: int, srgb: bool = False) -> TextureData:
@@ -53,22 +53,19 @@ def test_pool_unbudgeted_unchanged():
     assert pool.width0[0] == 32
     assert "over budget" not in err.getvalue()
 
-def test_pool_rows_clamp_to_gather_cliff():
-    """max_pool_rows (default FAST_GATHER_ROWS, the measured VMEM
-    gather-staging cliff — tools/gather_scale_ab.py) participates in the
-    clamp exactly like the byte budget: chains halve until under it."""
+def test_pool_budget_exact_fit_unchanged():
+    """A budget that exactly fits the packed pool clamps nothing: pool size
+    is bounded by the byte budget (device memory) and the f32-exact row
+    ceiling alone."""
     out, err = io.StringIO(), io.StringIO()
     log = Log(out_stream=out, err_stream=err)
     mats = [
         {"base": _tex(64), "mr": _tex(64), "normal": _tex(64), "sampler": {}},
         {"base": _tex(8), "mr": _tex(8), "normal": _tex(8), "sampler": {}},
     ]
-    pool = build_material_pool(mats, log, max_pool_rows=600)
-    assert pool.quads.shape[0] <= 600
-    assert pool.width0[0] < 64
-    assert pool.width0[1] == 8
-    assert "over budget" in err.getvalue()
-    # raising the row limit past the cliff keeps the pool unclamped but
-    # logs the gather-cliff advisory once rows exceed FAST_GATHER_ROWS
-    # (not reachable with tiny fixtures; just check no advisory here)
-    assert "gather-staging cliff" not in err.getvalue()
+    full = build_material_pool(mats, log)
+    rows = full.quads.shape[0]
+    pool = build_material_pool(mats, log, max_pool_bytes=rows * 4 * ROW_U32)
+    assert pool.quads.shape[0] == rows
+    np.testing.assert_array_equal(pool.width0, full.width0)
+    assert "over budget" not in err.getvalue()

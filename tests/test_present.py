@@ -12,13 +12,13 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from vktf_tpu.config import RenderConfig
-from vktf_tpu.engine import Engine
-from vktf_tpu.ops.present import decode_yuv420, encode_yuv420, encoded_size
-from vktf_tpu.window import Window
+from vktf.config import RenderConfig
+from vktf.engine import Engine
+from vktf.ops.present import decode_yuv420, encode_yuv420, encoded_size
+from vktf.window import Window
 
-from vktf_tpu.models.gltf_writer import GltfWriter
-from vktf_tpu.models.primitives import box_mesh
+from vktf.models.gltf_writer import GltfWriter
+from vktf.models.primitives import box_mesh
 
 
 def _psnr(a, b):
@@ -123,7 +123,7 @@ def test_odd_dimensions_rejected():
 
 
 def test_downsample_box_matches_numpy_oracle():
-    from vktf_tpu.ops.present import downsample_box
+    from vktf.ops.present import downsample_box
 
     frame = _frame(32, 64, seed=3)
     for scale in (1, 2, 4):
@@ -165,7 +165,7 @@ def test_preview_stream_end_to_end_and_exact_still(tmp_path):
     device downsample of the exact frame (rgb preview: no other loss), and
     Scene.render_still() under the preview config is BIT-EXACT to the
     scale-1 exact render (VERDICT r3 #2 'stills bit-exact')."""
-    from vktf_tpu.ops.present import downsample_box, upsample_nearest
+    from vktf.ops.present import downsample_box, upsample_nearest
 
     path = _box_scene(tmp_path)
     exact_cfg = RenderConfig(width=64, height=48, msaa_samples=1,

@@ -1,21 +1,21 @@
-"""Pallas streaming rasterizer vs the XLA tiled rasterizer (interpret mode).
+"""The Pallas raster kernel (interpret mode) vs the XLA rasterizers.
 
-The Pallas kernel must reproduce the tiled path bit-for-bit on triangle ids
-(both implement lexicographic (depth, draw-order)); depth may differ by f32
-rounding because the kernel pre-multiplies the depth plane by inv_det.
+The kernel must reproduce the tiled and dense paths bit-for-bit on triangle
+ids and depths (all implement lexicographic (depth, draw-order)), at every
+MSAA count, for depth-peel layers, and for the sharded band/id offsets.
 """
 
 import numpy as np
 import jax
 import pytest
 
-from vktf_tpu.config import RenderConfig
-from vktf_tpu.mathx import Camera, ViewFrustumParams
-from vktf_tpu.models.gltf_writer import GltfWriter
-from vktf_tpu.models.primitives import box_mesh, plane_mesh, uv_sphere_mesh
-from vktf_tpu.ops.pipeline import prepare_frame
-from vktf_tpu.ops.raster_pallas import rasterize_pallas
-from vktf_tpu.ops.raster_tiled import rasterize_tiled
+from vktf.config import RenderConfig
+from vktf.mathx import Camera, ViewFrustumParams
+from vktf.models.gltf_writer import GltfWriter
+from vktf.models.primitives import box_mesh, plane_mesh, uv_sphere_mesh
+from vktf.ops.pipeline import prepare_frame
+from vktf.ops.raster_pallas import rasterize_pallas
+from vktf.ops.raster_tiled import rasterize_tiled
 
 from helpers import build_scene
 
@@ -66,92 +66,87 @@ def test_pallas_matches_tiled(scene_setup):
     np.testing.assert_allclose(np.asarray(d_t), np.asarray(d_p), atol=1e-5)
 
 
-def test_pallas_window_sizes_equivalent(scene_setup):
-    """All raster window sizes must produce bit-identical visibility.
-
-    Regression test: r_end excluded the last touched pixel row's sample rows
-    ((y1c << log2s) instead of ((y1c + 1) << log2s)), which the default
-    32-row window usually hid via its 8-row alignment slack — at 1080p it
-    dropped whole triangles near group-span ends for smaller windows.
-    """
-    setup, config = scene_setup
-    ph, pw = config.padded_height, config.padded_width
-
-    def run(wr):
-        ids, depth = jax.jit(
-            lambda s: rasterize_pallas(
-                s, ph, pw, tile_shape=config.tile_shape, msaa_samples=4,
-                chunk=128, interpret=True, window_rows=wr,
-            )
-        )(setup)
-        return np.asarray(ids), np.asarray(depth)
-
-    ids32, d32 = run(32)
-    assert (ids32 >= 0).sum() > 1000
-    for wr in (8, 16, 64, 128):
-        ids_w, d_w = run(wr)
-        np.testing.assert_array_equal(ids32, ids_w)
-        np.testing.assert_array_equal(d32, d_w)
-
-
-def test_pallas_column_mode_equivalent(scene_setup):
-    """Column-supertile mode (one program per tile column) must be
-    bit-identical to per-tile mode — same math, same visit semantics, the
-    lexicographic depth-tie rule unchanged (also verified bit-equal on
-    real hardware, tools/raster_columns_ab.py)."""
-    setup, config = scene_setup
-    ph, pw = config.padded_height, config.padded_width
-
-    def run(cols):
-        ids, depth = jax.jit(
-            lambda s: rasterize_pallas(
-                s, ph, pw, tile_shape=config.tile_shape, msaa_samples=4,
-                chunk=128, interpret=True, interleave=2, columns=cols,
-            )
-        )(setup)
-        return np.asarray(ids), np.asarray(depth)
-
-    ids_t, d_t = run(False)
-    ids_c, d_c = run(True)
-    assert (ids_t >= 0).sum() > 1000
-    np.testing.assert_array_equal(ids_t, ids_c)
-    np.testing.assert_array_equal(d_t, d_c)
-
-
-def test_pallas_column_segments_equivalent(scene_setup, monkeypatch):
-    """The SEGMENTED column path (1 < bands < tiles_y, chosen when a full
-    column's accumulators exceed the scoped-VMEM budget — e.g. 4K) must be
-    bit-identical too. Shrink the budget so the 4-tile-tall framebuffer
-    picks 2-band segments."""
-    from vktf_tpu.ops import raster_pallas as rp
+@pytest.mark.parametrize("layers", [1, 3])
+@pytest.mark.parametrize("msaa", [1, 2, 4, 8])
+def test_pallas_matches_dense(scene_setup, msaa, layers):
+    """Every MSAA count, single layer and 3-layer depth peel, against the
+    every-triangle dense reference (rasterize_dense layers=K), with a chunk
+    and group smaller than the stream so several hit chunks and group
+    skips are exercised."""
+    from vktf.ops.raster_xla import rasterize_dense
 
     setup, config = scene_setup
     ph, pw = config.padded_height, config.padded_width
-    assert ph // config.tile_shape[0] == 4  # fixture geometry
-
-    def run():
-        ids, depth = jax.jit(
-            lambda s: rasterize_pallas(
-                s, ph, pw, tile_shape=config.tile_shape, msaa_samples=4,
-                chunk=128, interpret=True, interleave=2, columns=True,
-            )
-        )(setup)
-        return np.asarray(ids), np.asarray(depth)
-
-    ids_full, d_full = run()  # full columns (bands = 4)
-    jax.clear_caches()
-    rows_b = 4 * config.tile_shape[0] * config.tile_shape[1] * 8
-    monkeypatch.setattr(rp, "_ACC_VMEM_BUDGET", 2 * rows_b + 1)
-    ids_seg, d_seg = run()  # 2-band segments
-    assert (ids_full >= 0).sum() > 1000
-    np.testing.assert_array_equal(ids_full, ids_seg)
-    np.testing.assert_array_equal(d_full, d_seg)
+    ids_d, d_d = jax.jit(lambda s: rasterize_dense(
+        s, ph, pw, msaa_samples=msaa, layers=layers))(setup)
+    ids_p, d_p = jax.jit(lambda s: rasterize_pallas(
+        s, ph, pw, tile_shape=(16, 32), msaa_samples=msaa, chunk=64,
+        group=4, interpret=True, layers=layers))(setup)
+    ids_d, ids_p = np.asarray(ids_d), np.asarray(ids_p)
+    assert ids_p.shape == ids_d.shape
+    assert (ids_d >= 0).sum() > 1000 * msaa
+    if layers > 1:
+        assert (ids_d[1] >= 0).any(), "second peel layer never covered"
+    np.testing.assert_array_equal(ids_d, ids_p)
+    np.testing.assert_array_equal(np.asarray(d_d), np.asarray(d_p))
 
 
-def test_pallas_rejects_unaligned_chunk(scene_setup):
+def test_pallas_band_offset_and_id_base(scene_setup):
+    """The sharded path's hooks: rasterizing the lower half of the frame as
+    a band (y_offset) with offset ids (id_base) equals the matching rows of
+    the full-frame raster with its ids offset by the same base."""
     setup, config = scene_setup
-    with pytest.raises(ValueError, match="multiple of 128"):
-        rasterize_pallas(setup, 128, 256, tile_shape=(32, 128), chunk=64)
+    ph, pw = config.padded_height, config.padded_width
+    full_ids, full_d = jax.jit(lambda s: rasterize_pallas(
+        s, ph, pw, tile_shape=(16, 32), msaa_samples=2, chunk=64,
+        interpret=True))(setup)
+    base = 1000
+    band_ids, band_d = jax.jit(lambda s: rasterize_pallas(
+        s, ph // 2, pw, tile_shape=(16, 32), msaa_samples=2, chunk=64,
+        interpret=True, y_offset=ph // 2, id_base=base))(setup)
+    full_ids, band_ids = np.asarray(full_ids), np.asarray(band_ids)
+    lower = full_ids[:, ph // 2:]
+    assert (lower >= 0).sum() > 1000
+    np.testing.assert_array_equal(np.where(lower >= 0, lower + base, -1),
+                                  band_ids)
+    np.testing.assert_array_equal(np.asarray(full_d)[:, ph // 2:],
+                                  np.asarray(band_d))
+
+
+def test_pallas_raw_blocks_match_assembled(scene_setup):
+    """assemble=False returns the (tiles, S*th, tw) blocks (row = y*S + s)
+    that the tile-layout shade consumes; assembling them by hand gives the
+    (S, H, W) planes."""
+    setup, config = scene_setup
+    ph, pw = config.padded_height, config.padded_width
+    th, tw = 16, 32
+
+    def run(assemble):
+        return jax.jit(lambda s: rasterize_pallas(
+            s, ph, pw, tile_shape=(th, tw), msaa_samples=4, chunk=128,
+            interpret=True, assemble=assemble))(setup)
+
+    ids, _ = run(True)
+    blocks, _ = run(False)
+    blocks = np.asarray(blocks)
+    assert blocks.shape == (ph // th * (pw // tw), 4 * th, tw)
+    planes = (blocks.reshape(ph // th, pw // tw, th, 4, tw)
+              .transpose(3, 0, 2, 1, 4).reshape(4, ph, pw))
+    np.testing.assert_array_equal(planes, np.asarray(ids))
+
+
+@pytest.mark.parametrize("kwargs, match", [
+    (dict(chunk=96), "powers of two"),
+    (dict(group=256), "powers of two"),
+    (dict(tile_shape=(24, 32)), "powers of two"),
+    (dict(layers=9), "layers"),
+])
+def test_pallas_rejects_bad_blocks(scene_setup, kwargs, match):
+    setup, _config = scene_setup
+    args = dict(tile_shape=(16, 32), chunk=128)
+    args.update(kwargs)
+    with pytest.raises(ValueError, match=match):
+        rasterize_pallas(setup, 96, 256, interpret=True, **args)
 
 
 def test_setup_cm_matches_vertex_route(scene_setup, tmp_path_factory):
@@ -159,10 +154,10 @@ def test_setup_cm_matches_vertex_route(scene_setup, tmp_path_factory):
     must agree with the per-vertex triangle_setup route to FMA-contraction
     ULPs, and exactly on the integer/bool outputs."""
     import jax.numpy as jnp
-    from vktf_tpu.models.gltf_writer import GltfWriter
-    from vktf_tpu.models.primitives import box_mesh, uv_sphere_mesh
-    from vktf_tpu.ops.pipeline import prepare_frame
-    from vktf_tpu.mathx import ViewFrustumParams
+    from vktf.models.gltf_writer import GltfWriter
+    from vktf.models.primitives import box_mesh, uv_sphere_mesh
+    from vktf.ops.pipeline import prepare_frame
+    from vktf.mathx import ViewFrustumParams
 
     from helpers import build_scene
 
@@ -209,10 +204,10 @@ def test_near_crosser_clipped_bbox(tmp_path):
     1080p Sponza). rasterize_dense ignores bboxes entirely, so comparing
     ids against it catches any over-tight clip.
     """
-    from vktf_tpu.models.gltf_writer import GltfWriter
-    from vktf_tpu.models.primitives import box_mesh, plane_mesh
-    from vktf_tpu.mathx import ViewFrustumParams
-    from vktf_tpu.ops.raster_xla import rasterize_dense
+    from vktf.models.gltf_writer import GltfWriter
+    from vktf.models.primitives import box_mesh, plane_mesh
+    from vktf.mathx import ViewFrustumParams
+    from vktf.ops.raster_xla import rasterize_dense
 
     from helpers import build_scene
 
@@ -264,7 +259,7 @@ def _sliver_setup(width, height, count, seed):
     ~1e-5..1e-2.5 px, small clip w (Sponza-like magnitudes). Both windings
     are emitted; one of each pair survives back-face culling.
     """
-    from vktf_tpu.ops.vertex import triangle_setup
+    from vktf.ops.vertex import triangle_setup
 
     rng = np.random.default_rng(seed)
     clips, index_rows = [], []
@@ -303,8 +298,8 @@ def test_tiny_positive_w_keeps_cofactor_coverage():
     cofactor coverage and NOT be culled by the f32 area2 test (code-review
     r2 finding: the unconditioned cull could blink large visible triangles
     out for frames where one vertex grazes the camera plane)."""
-    from vktf_tpu.ops.vertex import triangle_setup
-    from vktf_tpu.ops.raster_xla import rasterize_dense
+    from vktf.ops.vertex import triangle_setup
+    from vktf.ops.raster_xla import rasterize_dense
 
     width, height = 256, 128
     # big on-screen triangle; vertex 2 almost exactly at the eye plane
@@ -417,7 +412,7 @@ def _setup_px(tris, width, height, z=0.5):
     (exact under /width, *2, -1 in f32). With w = 1 the homogeneous screen
     coords equal the pixel coords exactly.
     """
-    from vktf_tpu.ops.vertex import triangle_setup
+    from vktf.ops.vertex import triangle_setup
 
     clips, index_rows = [], []
     for corners in tris:
@@ -433,7 +428,7 @@ def _setup_px(tris, width, height, z=0.5):
 def _raster_both(setup, width, height, msaa):
     """(dense ids, pallas ids) as (S, H, W) int arrays — production kernel
     and the dense XLA form must BOTH match the hand expectation."""
-    from vktf_tpu.ops.raster_xla import rasterize_dense
+    from vktf.ops.raster_xla import rasterize_dense
 
     ids_d, _ = jax.jit(lambda s: rasterize_dense(
         s, height, width, msaa_samples=msaa, chunk=2))(setup)
@@ -485,7 +480,7 @@ class TestFillRulesHandComputed:
         """Same split quad at 4x MSAA: per-SAMPLE winners follow the hand
         rule id = (sy <= sx ? 0 : 1) inside [2,10)^2 — every sample covered
         exactly once across the shared edge at all 4 standard offsets."""
-        from vktf_tpu.ops.raster_xla import SAMPLE_OFFSETS
+        from vktf.ops.raster_xla import SAMPLE_OFFSETS
 
         setup = _setup_px(
             [[(2, 2), (10, 10), (10, 2)], [(2, 2), (2, 10), (10, 10)]],
@@ -561,3 +556,19 @@ class TestFillRulesHandComputed:
         ids_d, ids_p = _raster_both(setup, self.W, self.H, msaa=4)
         np.testing.assert_array_equal(ids_d >= 0, expected)
         np.testing.assert_array_equal(ids_p >= 0, expected)
+
+
+@pytest.mark.gpu
+def test_compiled_kernel_matches_tiled(scene_setup, gpu_device):
+    """On the card: the kernel compiled through Triton reproduces the XLA
+    tiled rasterizer (ids exactly; depths to FMA-contraction ULPs)."""
+    setup, config = scene_setup
+    ph, pw = config.padded_height, config.padded_width
+    ids_t, d_t = jax.jit(lambda s: rasterize_tiled(
+        s, ph, pw, tile_shape=config.tile_shape,
+        bin_capacity=config.bin_capacity, msaa_samples=4))(setup)
+    ids_p, d_p = jax.jit(lambda s: rasterize_pallas(
+        s, ph, pw, tile_shape=(16, 32), msaa_samples=4,
+        interpret=False))(setup)
+    np.testing.assert_array_equal(np.asarray(ids_t), np.asarray(ids_p))
+    np.testing.assert_allclose(np.asarray(d_t), np.asarray(d_p), atol=1e-6)

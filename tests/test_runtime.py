@@ -2,10 +2,10 @@
 
 import numpy as np
 
-from vktf_tpu.config import RenderConfig
-from vktf_tpu.models.gltf_writer import GltfWriter
-from vktf_tpu.models.primitives import box_mesh
-from vktf_tpu.runtime import enable_persistent_cache, frame_program, program_cache_info, warmup
+from vktf.config import RenderConfig
+from vktf.models.gltf_writer import GltfWriter
+from vktf.models.primitives import box_mesh
+from vktf.runtime import enable_persistent_cache, frame_program, program_cache_info, warmup
 
 from helpers import build_scene, default_camera
 

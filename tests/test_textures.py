@@ -5,15 +5,15 @@ import io
 import numpy as np
 import pytest
 
-from vktf_tpu.loaders.gltf import Texture
-from vktf_tpu.loaders.images import (
+from vktf.loaders.gltf import Texture
+from vktf.loaders.images import (
     decode_texture,
     default_texture_data,
     generate_mips,
     linear_to_srgb,
     srgb_to_linear,
 )
-from vktf_tpu.loaders.ktx import (
+from vktf.loaders.ktx import (
     SUPERCOMPRESSION_ZLIB,
     SUPERCOMPRESSION_ZSTD,
     KtxError,
@@ -21,7 +21,7 @@ from vktf_tpu.loaders.ktx import (
     parse_ktx2,
     write_ktx2,
 )
-from vktf_tpu.log import Log
+from vktf.log import Log
 
 
 def checker(size=8, a=(255, 0, 0, 255), b=(0, 0, 255, 255)):
@@ -131,12 +131,12 @@ class TestAnisotropy:
         pallas sampler and the numpy oracle (single-tap LOD clamp)."""
         import numpy as np
 
-        from vktf_tpu.config import RenderConfig
-        from vktf_tpu.models.gltf_writer import GltfWriter
-        from vktf_tpu.models.primitives import plane_mesh
-        from vktf_tpu.ops.pipeline import make_frame_fn
-        from vktf_tpu.ops.raster_xla import SAMPLE_OFFSETS
-        from vktf_tpu.ops.reference import render_reference
+        from vktf.config import RenderConfig
+        from vktf.models.gltf_writer import GltfWriter
+        from vktf.models.primitives import plane_mesh
+        from vktf.ops.pipeline import make_frame_fn
+        from vktf.ops.raster_xla import SAMPLE_OFFSETS
+        from vktf.ops.reference import render_reference
 
         import sys
         sys.path.insert(0, str(__import__("pathlib").Path(__file__).parent))
@@ -196,12 +196,12 @@ class TestPerSlotSamplers:
         material.cppm:138-171)."""
         import numpy as np
 
-        from vktf_tpu.config import RenderConfig
-        from vktf_tpu.models.gltf_writer import GltfWriter
-        from vktf_tpu.models.primitives import plane_mesh
-        from vktf_tpu.ops.pipeline import make_frame_fn
-        from vktf_tpu.ops.raster_xla import SAMPLE_OFFSETS
-        from vktf_tpu.ops.reference import render_reference
+        from vktf.config import RenderConfig
+        from vktf.models.gltf_writer import GltfWriter
+        from vktf.models.primitives import plane_mesh
+        from vktf.ops.pipeline import make_frame_fn
+        from vktf.ops.raster_xla import SAMPLE_OFFSETS
+        from vktf.ops.reference import render_reference
 
         import sys
         sys.path.insert(0, str(__import__("pathlib").Path(__file__).parent))
@@ -256,8 +256,8 @@ class TestPerSlotSamplers:
         """Small textured scene exercising the fused-mip edge cases: uvs far
         outside [0,1] (wrap saturation), a deep perspective plane (lod spans
         the whole chain incl. the top, where l1 == l0), an 8px chain."""
-        from vktf_tpu.models.gltf_writer import GltfWriter
-        from vktf_tpu.models.primitives import plane_mesh
+        from vktf.models.gltf_writer import GltfWriter
+        from vktf.models.primitives import plane_mesh
 
         import sys
         sys.path.insert(0, str(__import__("pathlib").Path(__file__).parent))
@@ -283,79 +283,57 @@ class TestPerSlotSamplers:
         return w.write(tmp_path / f"fused_{wrap}_{mag}_{min}.gltf")
 
     @pytest.mark.parametrize("wrap,mag,min", [
-        (10497, 9729, 9987),   # repeat, trilinear
-        (33071, 9729, 9987),   # clamp_to_edge (dx-rule saturation cases)
-        (10497, 9728, 9984),   # repeat, nearest mag/min + nearest mip
+        (10497, 9729, 9987),   # linear mag, trilinear min
+        (10497, 9728, 9984),   # nearest mag/min + nearest mip
+        (10497, 9729, 9985),   # linear min + nearest mip
+        (10497, 9728, 9986),   # nearest mag/min + linear mip
     ])
-    def test_fused_pool_matches_classic_bitwise(self, tmp_path, wrap, mag,
+    def test_filter_modes_match_oracle(self, tmp_path, wrap, mag,
                                                 min):
-        """The fused-mip single-gather path (shade_fused_pool=True, the
-        default) is BIT-IDENTICAL to the classic two-gather path for
-        repeat/clamp wrap — including clamp saturation at both edges, uvs
-        far outside [0,1], lod at the chain top (l1 == l0 -> slot-A reuse),
-        and nearest filter/mip modes (ops/texture_pack.py fused-mip
-        layout)."""
-        import dataclasses
-
+        """The filter and mip modes render like the numpy oracle under
+        repeat wrap — uvs far outside [0,1], a deep perspective plane whose
+        lod spans the whole chain (incl. the top, where l1 == l0), an 8px
+        chain (ops/texture_pack.py block layout, ops/shade_table.py
+        addressing)."""
         import numpy as np
 
-        from vktf_tpu.config import RenderConfig
-        from vktf_tpu.ops.pipeline import make_frame_fn
+        from vktf.config import RenderConfig
+        from vktf.ops.pipeline import make_frame_fn
+        from vktf.ops.raster_xla import SAMPLE_OFFSETS
+        from vktf.ops.reference import render_reference
 
         import sys
         sys.path.insert(0, str(__import__("pathlib").Path(__file__).parent))
-        from helpers import build_scene, default_camera
+        from helpers import (assert_images_close, build_scene,
+                             default_camera, make_reference)
 
         path = self._fused_scene(tmp_path, wrap, mag=mag, min=min)
-        scene, meta, _aux = build_scene(path)
+        scene, meta, aux = build_scene(path)
         assert not meta.mirror_wrap and not meta.mixed_samplers
-        camera = default_camera(position=(0.0, 1.2, 6.0),
-                                direction=(0.0, -0.18, -1.0))
-        base = RenderConfig(width=96, height=64, msaa_samples=4,
-                            tile_shape=(32, 64), backend="pallas",
-                            shading_rate="pixel")
-        frames = []
-        for fused in (True, False):
-            config = dataclasses.replace(base, shade_fused_pool=fused)
-            fn = make_frame_fn(meta, config)
-            frames.append(np.asarray(
-                fn(scene, camera.view_projection_transform, camera.position)
-            ))
-        np.testing.assert_array_equal(frames[0], frames[1])
-
-    def test_mirror_wrap_gates_fused_pool_off(self, tmp_path):
-        """MIRRORED_REPEAT sets SceneMeta.mirror_wrap (a reflection can push
-        the l+1 footprint outside the fused row's slot-B window), and
-        resolved_fused_pool refuses to enable the fused path for such
-        scenes even when the flag asks for it."""
-        from vktf_tpu.config import RenderConfig
-
-        import sys
-        sys.path.insert(0, str(__import__("pathlib").Path(__file__).parent))
-        from helpers import build_scene
-
-        path = self._fused_scene(tmp_path, 33648)  # mirrored_repeat
-        _scene, meta, _aux = build_scene(path)
-        assert meta.mirror_wrap
-        config = RenderConfig(shade_fused_pool=True)
-        assert not config.resolved_fused_pool(
-            mirror_wrap=meta.mirror_wrap,
-            mixed_samplers=meta.mixed_samplers,
+        # the whole plane in front of the camera: the oracle skips
+        # near-plane crossers
+        camera = default_camera(position=(0.0, 1.5, 19.0),
+                                direction=(0.0, -0.12, -1.0))
+        config = RenderConfig(width=96, height=64, msaa_samples=1,
+                              tile_shape=(32, 32), backend="pallas",
+                              shading_rate="sample")
+        fn = make_frame_fn(meta, config)
+        produced = np.moveaxis(np.asarray(
+            fn(scene, camera.view_projection_transform, camera.position)
+        ), 0, -1)
+        expected = render_reference(
+            make_reference(scene, meta, aux),
+            camera.view_projection_transform, camera.position, 96, 64,
+            SAMPLE_OFFSETS[1], max_anisotropy=config.max_anisotropy,
         )
-        # repeat/clamp scenes resolve ON by default
-        path2 = self._fused_scene(tmp_path, 10497)
-        _scene2, meta2, _aux2 = build_scene(path2)
-        assert not meta2.mirror_wrap
-        assert RenderConfig().resolved_fused_pool(
-            mirror_wrap=meta2.mirror_wrap,
-            mixed_samplers=meta2.mixed_samplers,
-        )
+        assert produced[..., :3].max() > 40
+        assert_images_close(produced, expected)
 
     def test_identical_samplers_stay_single_gather(self, tmp_path):
         """Scenes whose materials share samplers across slots keep
         mixed_samplers=False (the 1-gather-per-level fast path)."""
-        from vktf_tpu.models.gltf_writer import GltfWriter
-        from vktf_tpu.models.primitives import plane_mesh
+        from vktf.models.gltf_writer import GltfWriter
+        from vktf.models.primitives import plane_mesh
 
         import sys
         sys.path.insert(0, str(__import__("pathlib").Path(__file__).parent))
@@ -383,10 +361,10 @@ def test_ktx2_truncation_fuzz_fails_cleanly(tmp_path):
 
     import numpy as np
 
-    from vktf_tpu.loaders.images import generate_mips
-    from vktf_tpu.loaders.ktx import KtxError, load_ktx
-    from vktf_tpu.log import Log
-    from vktf_tpu.models.export import write_ktx2, write_ktx2_basis
+    from vktf.loaders.images import generate_mips
+    from vktf.loaders.ktx import KtxError, load_ktx
+    from vktf.log import Log
+    from vktf.models.export import write_ktx2, write_ktx2_basis
 
     rng = np.random.default_rng(0)
     img = rng.integers(0, 255, (16, 16, 4), dtype=np.uint8)
@@ -417,9 +395,9 @@ def test_ktx2_hostile_header_lengths_fail_cleanly(tmp_path):
 
     import numpy as np
 
-    from vktf_tpu.loaders.images import generate_mips
-    from vktf_tpu.loaders.ktx import KtxError, parse_ktx2
-    from vktf_tpu.models.export import write_ktx2
+    from vktf.loaders.images import generate_mips
+    from vktf.loaders.ktx import KtxError, parse_ktx2
+    from vktf.models.export import write_ktx2
 
     rng = np.random.default_rng(1)
     img = rng.integers(0, 255, (16, 16, 4), dtype=np.uint8)
@@ -449,9 +427,9 @@ def test_corrupt_ktx2_texture_degrades_not_aborts(tmp_path):
 
     import numpy as np
 
-    from vktf_tpu.loaders.gltf import Texture
-    from vktf_tpu.loaders.images import decode_texture
-    from vktf_tpu.log import Log
+    from vktf.loaders.gltf import Texture
+    from vktf.loaders.images import decode_texture
+    from vktf.log import Log
 
     # unit tier: decode_texture returns None with a logged error
     blob = b"\xabKTX 20\xbb\r\n\x1a\n" + b"\x00" * 4  # truncated header
@@ -463,8 +441,8 @@ def test_corrupt_ktx2_texture_degrades_not_aborts(tmp_path):
 
 class TestMultiTapAnisotropy:
     def _floor_scene(self, tmp_path):
-        from vktf_tpu.models.gltf_writer import GltfWriter
-        from vktf_tpu.models.primitives import plane_mesh
+        from vktf.models.gltf_writer import GltfWriter
+        from vktf.models.primitives import plane_mesh
 
         import sys
         sys.path.insert(0, str(__import__("pathlib").Path(__file__).parent))
@@ -490,10 +468,10 @@ class TestMultiTapAnisotropy:
         floor, and actually differs from the single-tap approximation."""
         import numpy as np
 
-        from vktf_tpu.config import RenderConfig
-        from vktf_tpu.ops.pipeline import make_frame_fn
-        from vktf_tpu.ops.raster_xla import SAMPLE_OFFSETS
-        from vktf_tpu.ops.reference import render_reference
+        from vktf.config import RenderConfig
+        from vktf.ops.pipeline import make_frame_fn
+        from vktf.ops.raster_xla import SAMPLE_OFFSETS
+        from vktf.ops.reference import render_reference
 
         import sys
         sys.path.insert(0, str(__import__("pathlib").Path(__file__).parent))
@@ -534,9 +512,9 @@ class TestMultiTapAnisotropy:
         import jax
         import numpy as np
 
-        from vktf_tpu.config import RenderConfig
-        from vktf_tpu.ops.pipeline import make_frame_fn
-        from vktf_tpu.parallel import make_render_mesh, make_sharded_frame_fn
+        from vktf.config import RenderConfig
+        from vktf.ops.pipeline import make_frame_fn
+        from vktf.parallel import make_render_mesh, make_sharded_frame_fn
 
         import sys
         sys.path.insert(0, str(__import__("pathlib").Path(__file__).parent))
@@ -555,16 +533,14 @@ class TestMultiTapAnisotropy:
             scene, camera.view_projection_transform, camera.position))
         np.testing.assert_array_equal(single, sharded)
 
-    def test_multi_tap_kernel_form_bit_equals_xla(self, tmp_path):
-        """Kernel-native multi-tap (the two-phase fused path production
-        configs take) is BIT-IDENTICAL to the XLA multi-tap form in
-        interpret mode — per-tap fused rows + in-kernel tap addressing
-        reproduce the per-tap classic two-gather exactly (the fused==classic
-        bitwise guarantee applied per tap)."""
+    def test_multi_tap_split_stage_matches_fused(self, tmp_path):
+        """Multi-tap anisotropy through the split-stage program (pixel-rate
+        tile-layout shade, 2x MSAA) equals the fused single-program frame
+        bit-for-bit."""
         import numpy as np
 
-        from vktf_tpu.config import RenderConfig
-        from vktf_tpu.ops.pipeline import PallasFrameProgram, make_frame_fn
+        from vktf.config import RenderConfig
+        from vktf.ops.pipeline import PallasFrameProgram, make_frame_fn
 
         import sys
         sys.path.insert(0, str(__import__("pathlib").Path(__file__).parent))
@@ -578,64 +554,12 @@ class TestMultiTapAnisotropy:
                     tile_shape=(32, 64), pallas_chunk=128,
                     shade_chunk=1 << 12, shade_skip_mode=False,
                     max_anisotropy=8.0, aniso_taps=2)
-        kernel_fn = make_frame_fn(meta, RenderConfig(**base))
-        assert isinstance(kernel_fn, PallasFrameProgram)
-        assert kernel_fn._two_phase, "fused scene must take kernel taps"
-        xla_fn = make_frame_fn(meta, RenderConfig(shade_impl="xla", **base))
+        split_fn = make_frame_fn(meta, RenderConfig(**base))
+        assert isinstance(split_fn, PallasFrameProgram)
+        fused_fn = make_frame_fn(meta, RenderConfig(split_stages=False,
+                                                    **base))
         vp, pos = camera.view_projection_transform, camera.position
-        a = np.asarray(kernel_fn(scene, vp, pos))
-        b = np.asarray(xla_fn(scene, vp, pos))
+        a = np.asarray(split_fn(scene, vp, pos))
+        b = np.asarray(fused_fn(scene, vp, pos))
         np.testing.assert_array_equal(a, b)
-
-    def test_multi_tap_attrs_boundary_routes_to_xla(self, tmp_path):
-        """aniso_taps > 1 + shade_attrs_boundary must NOT silently shade
-        single-tap (ADVICE r4 medium): shade_attrs_chunk carries no tap
-        addressing, so the auto impl gate routes the combo to the XLA
-        multi-tap form — single-chip AND sharded — and an explicit
-        shade_impl='kernel' override errors instead of degrading."""
-        import jax
-        import numpy as np
-        import pytest
-
-        from vktf_tpu.config import RenderConfig
-        from vktf_tpu.ops.pipeline import PallasFrameProgram, make_frame_fn
-        from vktf_tpu.parallel import make_render_mesh, make_sharded_frame_fn
-
-        import sys
-        sys.path.insert(0, str(__import__("pathlib").Path(__file__).parent))
-        from helpers import build_scene, default_camera
-
-        scene, meta, aux = build_scene(self._floor_scene(tmp_path))
-        camera = default_camera(aspect=2.0, position=(0.0, 0.2, 9.5),
-                                direction=(0.0, -0.05, -1.0))
-        base = dict(width=128, height=64, msaa_samples=2,
-                    backend="pallas", pallas_interpret=True,
-                    tile_shape=(32, 64), pallas_chunk=128,
-                    shade_chunk=1 << 12, shade_skip_mode=False,
-                    max_anisotropy=8.0, aniso_taps=2)
-        attrs_fn = make_frame_fn(
-            meta, RenderConfig(shade_attrs_boundary=True, **base))
-        assert isinstance(attrs_fn, PallasFrameProgram)
-        assert not attrs_fn._two_phase, (
-            "attrs boundary + multi-tap must leave the kernel two-phase path"
-        )
-        xla_fn = make_frame_fn(meta, RenderConfig(shade_impl="xla", **base))
-        vp, pos = camera.view_projection_transform, camera.position
-        produced = np.asarray(attrs_fn(scene, vp, pos))
-        expected = np.asarray(xla_fn(scene, vp, pos))
-        np.testing.assert_array_equal(produced, expected)
-
-        # sharded gate: same combo takes the assembled XLA fallback and
-        # stays bit-equal to the single chip
-        mesh = make_render_mesh(jax.devices(), gp=2)
-        sharded_fn = make_sharded_frame_fn(
-            meta, RenderConfig(shade_attrs_boundary=True, **base), mesh)
-        sharded = np.asarray(sharded_fn(scene, vp, pos))
-        np.testing.assert_array_equal(sharded, expected)
-
-        # an explicit kernel override errors loudly, never single-taps
-        forced = make_frame_fn(
-            meta, RenderConfig(shade_attrs_boundary=True,
-                               shade_impl="kernel", **base))
-        with pytest.raises(ValueError, match="aniso_taps"):
-            forced(scene, vp, pos)
+        assert (a.sum(axis=0) > 0).any()

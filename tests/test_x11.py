@@ -9,8 +9,8 @@ src/engine/window.cppm:28-214 (GLFW window + input polling).
 import numpy as np
 import pytest
 
-from vktf_tpu.window import Window
-from vktf_tpu.x11 import X11Display, rgba_to_bgrx
+from vktf.window import Window
+from vktf.x11 import X11Display, rgba_to_bgrx
 
 
 def test_rgba_to_bgrx_swizzle():
@@ -69,7 +69,7 @@ def test_interactive_without_display_refuses():
     # un-closable loop; start() must refuse before engine construction
     import pytest
 
-    from vktf_tpu.game import start
+    from vktf.game import start
 
     with pytest.raises(RuntimeError, match="interactive"):
         start(["missing.gltf"], width=8, height=8, script=None, display=None)
